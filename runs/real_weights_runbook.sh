@@ -55,7 +55,7 @@ segment() {  # $1 = ckpt, $2 = config, $3 = wav dir, $4 = out dir
 dryrun() {
   # Everything this (download-blocked) env permits, at FULL geometry:
   # synthetic reference-layout .pt export -> both-layout ingest -> segment
-  # CLI load -> a talk segmented end-to-end.  ~10 min on the TPU rig.
+  # CLI load -> a talk segmented end-to-end.
   python scripts/runbook_dryrun.py
 }
 

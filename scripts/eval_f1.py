@@ -3,9 +3,9 @@
 
 The reference computes dev frame-F1 only inside its training loop
 (lib/evaluate.py:130-214 via train.py:543-662); this script exposes the same
-metric as a one-command runbook stage so trained-weights parity ("frame-F1
-within 0.1 pt of the reference checkpoints", BASELINE.md) can be checked on
-any host with the checkpoints and a prepared MuST-C dev split:
+metric as a one-command runbook stage so trained-weights parity (frame-F1
+against the reference checkpoints) can be checked on any host with the
+checkpoints and a prepared MuST-C dev split:
 
     python scripts/eval_f1.py \
         --ckpt /path/epoch-15_best_eval_f1.pt \
@@ -28,7 +28,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def main():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True)
     ap.add_argument("--config", required=True,
@@ -42,14 +42,15 @@ def main():
     ap.add_argument("--allow-random-wav2vec", action="store_true",
                     help="head-only ckpt without a local HF snapshot "
                          "(random backbone — smoke/dry runs only)")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
-    from wav2vecsegmenter_tpu.core.runtime import setup_compilation_cache
 
-    setup_compilation_cache()
-    import jax
-    import jax.numpy as jnp
+def evaluate_checkpoint(args) -> dict:
+    """The metrics dict for parsed ``args``; runs in the calling process
+    (one JAX process per card)."""
+    from wav2vecsegmenter_tpu.core import platform
 
+    platform.setup_compilation_cache()
     from wav2vecsegmenter_tpu.checkpoints.io import load_model_checkpoint
     from wav2vecsegmenter_tpu.cli.common import build_model
     from wav2vecsegmenter_tpu.config import load_config
@@ -62,23 +63,24 @@ def main():
     model, vocab = build_model(config)
     params = load_model_checkpoint(
         model, args.ckpt, allow_random_wav2vec=args.allow_random_wav2vec)
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
-        params = jax.device_put(params, jax.devices()[0])
 
     loss_tag = config.task.loss.tag
     loss_fn = (build_loss(dict(config.task.loss))[0]
                if loss_tag == "bce" else None)
     engine = WindowInference(
         model, params, loss_tag=loss_tag,
-        compute_dtype=jnp.bfloat16 if on_tpu else jnp.float32,
+        compute_dtype=platform.compute_dtype(),
         vocab=vocab, loss_fn=loss_fn)
     gen = FixedDataloaderGenerator(
         talk_list=args.talk_list, segments_list=args.segments_list,
         segment_length=args.segment_length, batch_size=args.batch_size,
         inference_times=args.inference_times, vocab=vocab,
         device_normalize=True, remainder_ladder=True)
-    print(json.dumps(evaluate(gen, engine, loss_tag=loss_tag, vocab=vocab)))
+    return evaluate(gen, engine, loss_tag=loss_tag, vocab=vocab)
+
+
+def main(argv=None):
+    print(json.dumps(evaluate_checkpoint(parse_args(argv))))
 
 
 if __name__ == "__main__":

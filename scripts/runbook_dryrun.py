@@ -13,19 +13,19 @@ the remaining stages unmodified:
      without an HF snapshot needs);
   3. run the segment CLI end-to-end on a synthetic talk with the full .pt
      (config_path merge + ckpt load + windows + pDAC + yaml out);
-  4. run scripts/eval_f1.py against the head-only ckpt on a tiny synthetic
-     dev split (the F1 stage's plumbing; the NUMBER is meaningless with
-     random weights — only trained weights make it the BASELINE metric).
+  4. run scripts/eval_f1.py's evaluation, in this process, against the
+     head-only ckpt on a tiny synthetic dev split (the F1 stage's plumbing;
+     the NUMBER is meaningless with random weights — only trained weights
+     make it the parity metric).
 
-Run: timeout 1800 python scripts/runbook_dryrun.py  (TPU or CPU; CPU uses
-a reduced talk but the same full-geometry model)
+Run: timeout 1800 python scripts/runbook_dryrun.py  (GPU or CPU; CPU uses
+a reduced talk but the same full-geometry model).  Stages 1-2 need torch
+for the .pt files.
 """
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
+import importlib.util
 import sys
 import tempfile
 from pathlib import Path
@@ -41,9 +41,9 @@ def log(msg):
 
 
 def main():
-    from wav2vecsegmenter_tpu.core.runtime import setup_compilation_cache
+    from wav2vecsegmenter_tpu.core import platform
 
-    setup_compilation_cache()
+    platform.setup_compilation_cache()
     import jax
 
     from wav2vecsegmenter_tpu.checkpoints.io import load_model_checkpoint
@@ -52,7 +52,6 @@ def main():
     from wav2vecsegmenter_tpu.data.audio import write_wav
     from wav2vecsegmenter_tpu.models.shas import SHAS
 
-    on_tpu = jax.default_backend() == "tpu"
     model = SHAS(wav2vec_model_name="facebook/wav2vec2-xls-r-300m",
                  wav2vec_keep_layers=24, n_transformer_enc_layers=1,
                  n_transformer_enc_heads=8, init_dropout=0.1)
@@ -93,7 +92,7 @@ def main():
 
     wav_dir = td / "wav"
     wav_dir.mkdir()
-    secs = 120.0 if on_tpu else 30.0
+    secs = 120.0 if platform.on_gpu() else 30.0
     rng = np.random.RandomState(0)
     n = int(secs * 16000)
     write_wav(wav_dir / "talk.wav",
@@ -129,17 +128,15 @@ def main():
         _yaml.dump(seg_rows, f)
     talks_tsv, segs_tsv = prepare_dataset_for_segmentation(
         td / "dev.yaml", wav_dir, td, split="dev")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run(
-        [sys.executable, str(REPO / "scripts" / "eval_f1.py"),
-         "--ckpt", str(head_pt), "--config", str(td / "config.yaml"),
-         "--talk-list", str(talks_tsv), "--segments-list", str(segs_tsv),
-         "--allow-random-wav2vec"],
-        capture_output=True, text=True, env=env, timeout=1500)
-    assert r.returncode == 0, r.stderr[-2000:]
-    metrics = json.loads(
-        [ln for ln in r.stdout.splitlines() if ln.startswith("{")][-1])
+    # in this process: a child JAX process would open the card a second time
+    spec = importlib.util.spec_from_file_location(
+        "eval_f1", REPO / "scripts" / "eval_f1.py")
+    eval_f1 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(eval_f1)
+    metrics = eval_f1.evaluate_checkpoint(eval_f1.parse_args([
+        "--ckpt", str(head_pt), "--config", str(td / "config.yaml"),
+        "--talk-list", str(talks_tsv), "--segments-list", str(segs_tsv),
+        "--allow-random-wav2vec"]))
     log(f"eval_f1 stage OK (random-weights metrics, plumbing only): "
         f"{metrics}")
     print("RUNBOOK_DRYRUN_OK", flush=True)

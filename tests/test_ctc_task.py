@@ -203,7 +203,6 @@ def test_ctc_train_loop_end_to_end(ctc_corpus, tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
         ])
         from wav2vecsegmenter_tpu.train.loop import train

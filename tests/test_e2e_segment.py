@@ -58,7 +58,6 @@ def _run_segment(workspace, out_name, extra_overrides):
         "task.model.wav2vec_keep_layers=2",
         "task.model.n_transformer_enc_heads=4",
         "batch_size=3",
-        "runtime.kernels=xla",
         "runtime.compute_dtype=float32",
         "+_tiny_test_model=true",
         # pin the artifacts to out_dir itself (hydra-style run dirs would
@@ -222,7 +221,6 @@ def test_inference_st_pipe_cli_end_to_end(workspace, tmp_path, monkeypatch):
         f"infer_data.orig_src_txt={workspace}/txt/orig.en",
         f"infer_data.orig_tgt_txt={workspace}/txt/orig.de",
         "batch_size=3",
-        "runtime.kernels=xla",
         "runtime.compute_dtype=float32",
         "runtime.mesh.data=1",
         f"+results_path={outputs}/infer_outputs",
@@ -262,7 +260,6 @@ def test_inference_cli_end_to_end(workspace, tmp_path):
         f"infer_data.wav_dir={workspace}/wav",
         f"infer_data.orig_seg_yaml={workspace}/txt/orig.yaml",
         "batch_size=3",
-        "runtime.kernels=xla",
         "runtime.compute_dtype=float32",
         "runtime.mesh.data=1",
         f"+results_path={outputs}/infer_outputs",
@@ -304,7 +301,6 @@ def test_hydra_run_dirs_and_multirun(workspace, tmp_path):
         f"infer_data.wav_dir={workspace}/wav",
         f"infer_data.orig_seg_yaml={workspace}/txt/orig.yaml",
         "batch_size=3",
-        "runtime.kernels=xla",
         "runtime.compute_dtype=float32",
         "runtime.mesh.data=1",
     ])

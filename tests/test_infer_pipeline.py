@@ -192,7 +192,7 @@ def test_precision_ladder_arms_match_f32_baseline():
     extra casts are identities and the f32last split only reshapes the scan,
     so ALL arms must reproduce the bf16-arm (here f32) numbers exactly —
     this pins the ladder plumbing (head_dtype / residual_dtype / f32_last_k
-    through SHAS.apply and the encoder scan split) without TPU hardware."""
+    through SHAS.apply and the encoder scan split) without a GPU."""
     from wav2vecsegmenter_tpu.infer.pipeline import resolve_precision
 
     model = tiny_shas()

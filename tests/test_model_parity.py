@@ -217,7 +217,7 @@ def test_full_shas_pipeline_parity():
 
 
 def test_bf16_compute_dtype_compiles_all_variants():
-    """bf16 compute path (the TPU default) must trace for every variant —
+    """bf16 compute path (the GPU default) must trace for every variant —
     guards dtype leaks that f32-only CPU tests cannot catch."""
     import dataclasses
 
@@ -247,7 +247,7 @@ def test_bf16_compute_dtype_compiles_all_variants():
                                        compute_dtype=jnp.bfloat16),
             params, audio, lens, om)
         assert out.shape == (2, 50)
-        # gradient path traces too (TPU fine-tuning)
+        # gradient path traces too (fine-tuning)
         gshape = jax.eval_shape(
             lambda p, a, l, o: jax.grad(
                 lambda pp: m.apply(pp, a, l, o,

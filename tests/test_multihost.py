@@ -3,7 +3,7 @@ two processes x 4 virtual CPU devices form one global 8-device data mesh
 via jax.distributed; the full train() loop runs on both ranks and agrees
 with a single-process 8-device run of the same job.
 
-This is the CPU stand-in for a TPU pod: same code path
+This is the CPU stand-in for a multi-host cluster: same code path
 (core.runtime.maybe_init_distributed -> global mesh -> GSPMD collectives,
 here over gloo instead of ICI).
 """
@@ -77,24 +77,13 @@ def _env(n_local_devices, coord=None, num=None, pid=None):
     return env
 
 
-def test_two_process_train_matches_single_host(corpus, tmp_path):
-    port = _free_port()
-    coord = f"127.0.0.1:{port}"
-
-    # single-host reference: one process, 8 local devices, same global mesh
-    ref_json = tmp_path / "ref.json"
-    ref = subprocess.run(
-        _worker_cmd(tmp_path / "ref", corpus, ref_json),
-        env=_env(8), cwd=REPO, capture_output=True, text=True, timeout=540)
-    assert ref.returncode == 0, ref.stderr[-3000:]
-
-    # two ranks x 4 local devices -> the same 8-device global data mesh
-    procs, outs = [], []
+def _run_two_ranks(work_of, out_of, corpus, extra=()):
+    """Two ranks x 4 local devices -> one 8-device global data mesh."""
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = []
     for pid in range(2):
-        out_json = tmp_path / f"rank{pid}.json"
-        outs.append(out_json)
         procs.append(subprocess.Popen(
-            _worker_cmd(tmp_path / f"rank{pid}", corpus, out_json),
+            _worker_cmd(work_of(pid), corpus, out_of(pid)) + list(extra),
             env=_env(4, coord, 2, pid), cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errs = []
@@ -108,10 +97,20 @@ def test_two_process_train_matches_single_host(corpus, tmp_path):
         errs.append(err)
     assert all(p.returncode == 0 for p in procs), \
         "\n".join(e[-3000:] for e in errs)
+    return [json.loads(Path(out_of(pid)).read_text()) for pid in range(2)]
 
+
+def test_two_process_train_matches_single_host(corpus, tmp_path):
+    # single-host reference: one process, 8 local devices, same global mesh
+    ref_json = tmp_path / "ref.json"
+    ref = subprocess.run(
+        _worker_cmd(tmp_path / "ref", corpus, ref_json),
+        env=_env(8), cwd=REPO, capture_output=True, text=True, timeout=540)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+
+    r0, r1 = _run_two_ranks(lambda pid: tmp_path / f"rank{pid}",
+                            lambda pid: tmp_path / f"rank{pid}.json", corpus)
     ref_res = json.loads(ref_json.read_text())
-    r0 = json.loads(outs[0].read_text())
-    r1 = json.loads(outs[1].read_text())
 
     assert ref_res["process_count"] == 1
     assert ref_res["n_global_devices"] == 8
@@ -128,3 +127,33 @@ def test_two_process_train_matches_single_host(corpus, tmp_path):
     # intra-process transfers — tiny numerical slack)
     assert r0["eval_f1"] == pytest.approx(ref_res["eval_f1"], abs=1e-3)
     assert r0["eval_loss"] == pytest.approx(ref_res["eval_loss"], rel=1e-3)
+
+
+def test_two_process_checkpoints_save_and_resume(corpus, tmp_path):
+    """Both ranks share one work dir, as on shared storage, with
+    checkpoints on: process 0 writes each checkpoint and the resume state
+    with its bookkeeping, and no rank returns from a save before it is in
+    place; a second run resumes from it on both ranks."""
+    shared = tmp_path / "shared"
+    run = shared / "mh"
+
+    def ranks(tag, extra):
+        return _run_two_ranks(lambda pid: shared,
+                              lambda pid: tmp_path / f"{tag}{pid}.json",
+                              corpus, extra=extra)
+
+    r0, r1 = ranks("first", ["save_ckpts=true"])
+    meta = yaml.safe_load((run / "last_state" / "meta.yaml").read_text())
+    assert meta["epoch"] == 1 and meta["ckpt_list"] == ["epoch-0"]
+    assert (run / "last_state" / "manifest.json").exists()
+    assert (run / "ckpts" / "epoch-0" / "manifest.json").exists()
+    # no half-built or swapped-out directory is left behind
+    assert not [p for p in run.rglob(".*") if p.name.endswith((".tmp", ".old"))]
+
+    r0, r1 = ranks("resumed", ["save_ckpts=true", "+resume=true",
+                               "max_epochs=2"])
+    meta = yaml.safe_load((run / "last_state" / "meta.yaml").read_text())
+    assert meta["epoch"] == 2
+    assert meta["ckpt_list"] == ["epoch-0", "epoch-1"]
+    for k in ("eval_loss", "eval_f1"):
+        assert r0[k] == pytest.approx(r1[k], rel=1e-6), k

@@ -77,7 +77,6 @@ def _run_online(workspace, out_name, extra_overrides):
         f"infer_data.orig_seg_yaml={workspace}/txt/orig.yaml",
         "segment_length=4",
         "chunk_secs=0.3",
-        "runtime.kernels=xla",
         "runtime.compute_dtype=float32",
         "+_tiny_test_model=true",
         f"+results_path={out_dir}",

@@ -177,7 +177,6 @@ def test_segment_cli_pack_across_talks(tmp_path):
                 "algorithm=pthr",
                 "inference_segment_length=4",
                 "batch_size=3",
-                "runtime.kernels=xla",
                 "runtime.compute_dtype=float32",
                 *extra,
             ]

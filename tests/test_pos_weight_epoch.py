@@ -143,7 +143,6 @@ def test_loop_pos_weight_tracks_epochs(tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
         ])
         loop_mod.train(cfg, work_dir=tmp_path)

@@ -3,8 +3,8 @@ runtime.quantize=int8).
 
 The scheme is weight-per-output-channel + activation-per-row dynamic
 symmetric quantization; these tests bound the numerical deviation of each
-piece and of the end-to-end engine against the float path.  The perf claim
-(int8 MXU rate on v5e) is measured on hardware separately (PERF.md).
+piece and of the end-to-end engine against the float path.  Its speed is
+a device measurement, not a test.
 """
 
 import numpy as np
@@ -139,35 +139,6 @@ def test_engine_int8_rejects_tensor_parallel_and_unknown_mode():
         WindowInference(model, params, mesh=make_mesh(2, 2), quantize="int8")
     with pytest.raises(ValueError, match="unknown quantize"):
         WindowInference(model, params, quantize="fp8")
-
-
-def test_int8_forward_under_pallas_kernels(rng=None):
-    """The quantized GEMMs compose with the Pallas attention/LN kernels
-    (interpret mode on CPU) — the actual TPU serving configuration is
-    int8 GEMMs + fused kernels."""
-    from jax.experimental import pallas as _  # noqa: F401 (import guard)
-    import jax.experimental.pallas.tpu as pltpu
-
-    from wav2vecsegmenter_tpu.ops import backend as backend_mod
-    from wav2vecsegmenter_tpu.ops.quant import quantize_params
-
-    model = tiny_shas()
-    params = model.init(jax.random.PRNGKey(0))
-    qparams = quantize_params(params)
-    npr = np.random.RandomState(8)
-    audio = jnp.asarray(npr.randn(2, 16000).astype(np.float32))
-    lens = jnp.full((2,), 16000, jnp.int32)
-    out_mask = jnp.ones((2, 50), bool)
-
-    backend_mod.set_backend("xla")
-    lx = np.asarray(model.apply(qparams, audio, lens, out_mask))
-    backend_mod.set_backend("pallas")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            lp = np.asarray(model.apply(qparams, audio, lens, out_mask))
-    finally:
-        backend_mod.set_backend("auto")
-    np.testing.assert_allclose(lp, lx, atol=5e-4, rtol=5e-3)
 
 
 def test_autoreg_greedy_decode_with_quantized_backbone():

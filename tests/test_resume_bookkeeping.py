@@ -51,7 +51,6 @@ def _cfg(corpus, max_epochs, resume):
         f"data.train.segments_list={segments_tsv}",
         f"data.eval.talk_list={talks_tsv}",
         f"data.eval.segments_list={segments_tsv}",
-        "runtime.kernels=xla",
         "runtime.compute_dtype=float32",
         # regression: resume + profile_steps used to call stop_trace without
         # a matching start_trace (global_step resumes non-zero) -> crash

@@ -315,7 +315,7 @@ def test_serve_cli_build_server(tmp_path):
             f"ckpt_path={tmp_path}/ckpt",
             "segment_length=4",
             "algorithm=strm", "algorithm.max_segment_length=3",
-            "runtime.kernels=xla", "runtime.compute_dtype=float32",
+            "runtime.compute_dtype=float32",
         ])
         config = merge(load_config(tmp_path / "train_config.yaml"), config)
         srv = build_server(config)

@@ -248,8 +248,8 @@ def test_tensor_parallel_train_step_on_mesh(rng):
 
 
 def test_multistep_on_mesh(rng):
-    """K steps/call via lax.scan on the 8-device mesh (the TPU-default
-    steps_per_call path) runs and matches sequential single steps.
+    """K steps/call via lax.scan on the 8-device mesh (the
+    steps_per_call > 1 path) runs and matches sequential single steps.
 
     Regression test for the round-1 out_shardings crash: multi_fn returns
     {"loss", "logits"} but the mesh path only constrained {"loss"}."""
@@ -581,60 +581,3 @@ def test_epoch_end_accum_flush(rng):
     assert int(state.opt_state.gradient_step) == 1
     for a, b in zip(jax.tree.leaves(p1), jax.tree.leaves(state.params)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_tensor_parallel_pallas_kernels_on_mesh(rng):
-    """kernels=pallas stays active under tensor parallelism (VERDICT r3
-    weak #5): with the mesh context installed, attention shard_maps its
-    heads over 'model' and LN its rows over 'data' (ops/shmap.py) instead
-    of the r1-r3 silent kernels=xla fallback.  The TP train step matches an
-    UNSHARDED pallas train step on the same batch/keys."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from wav2vecsegmenter_tpu.ops.backend import set_backend, set_mesh
-    from wav2vecsegmenter_tpu.parallel.mesh import make_mesh, state_shardings
-
-    # (2,2), not (4,2): TPU interpret mode deadlocks under shard_map at 8
-    # virtual devices with >=~128KB per-device buffers (see mesh_ctx in
-    # test_ops.py); 4 devices are robust and cover both mesh axes
-    mesh = make_mesh(2, 2)
-    model = tiny_shas()
-    params = model.init(jax.random.PRNGKey(0))
-    mask = model.trainable_mask(params)
-    opt = make_optimizer(1e-3, 100, 1, mask)
-    batch = _make_batch(rng, b=8, L=16000, t_out=50)
-
-    set_backend("pallas")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            # unsharded pallas oracle
-            set_mesh(None)
-            params2 = jax.tree.map(jnp.copy, params)
-            state1 = init_train_state(model, opt, jax.random.PRNGKey(1),
-                                      params)
-            step1 = make_train_step(model, BCEWithLogitsLoss(None), "bce", 0,
-                                    opt)
-            state1, m1 = step1(state1, batch, jax.random.PRNGKey(9))
-
-            # tensor-parallel pallas step
-            set_mesh(mesh)
-            state2 = init_train_state(model, opt, jax.random.PRNGKey(1),
-                                      params2)
-            st_sh = state_shardings(mesh, state2)
-            state2 = jax.device_put(state2, st_sh)
-            step_tp = make_train_step(model, BCEWithLogitsLoss(None), "bce",
-                                      0, opt, mesh=mesh,
-                                      state_shardings=st_sh)
-            state2, mtp = step_tp(state2, batch, jax.random.PRNGKey(9))
-    finally:
-        set_backend("auto")
-        set_mesh(None)
-
-    np.testing.assert_allclose(float(m1["loss"]), float(mtp["loss"]),
-                               rtol=1e-5)
-    # Adam's first-step update ~ sign(g): cross-shard reduction-order noise
-    # is amplified, so params match only loosely (same as the xla TP test)
-    for a, b in zip(jax.tree.leaves(state1.params),
-                    jax.tree.leaves(state2.params)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-2, atol=1e-3)

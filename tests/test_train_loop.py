@@ -79,7 +79,6 @@ def test_train_loop_end_to_end(corpus, tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
         ])
         from wav2vecsegmenter_tpu.train.loop import train
@@ -127,7 +126,6 @@ def test_train_loop_multistep(corpus, tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
             "+runtime.steps_per_call=3",
             "+runtime.device_normalize=true",
@@ -143,13 +141,12 @@ def test_train_loop_multistep(corpus, tmp_path, monkeypatch):
 
 def test_train_loop_tensor_parallel(corpus, tmp_path, monkeypatch):
     """runtime.mesh.model=2: the loop builds the 2-D (data, model) mesh,
-    places params/moments with tensor-parallel shardings, forces the xla
-    kernel backend, and trains + evaluates end-to-end."""
+    places params/moments with tensor-parallel shardings, and trains +
+    evaluates end-to-end."""
     ws, talks_tsv, segments_tsv = corpus
     monkeypatch.chdir(tmp_path)
 
     from wav2vecsegmenter_tpu.config import registry
-    from wav2vecsegmenter_tpu.ops import backend as backend_mod
 
     import tests.helpers as helpers
 
@@ -171,7 +168,6 @@ def test_train_loop_tensor_parallel(corpus, tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
             "runtime.mesh.data=2",
             "runtime.mesh.model=2",
@@ -181,7 +177,6 @@ def test_train_loop_tensor_parallel(corpus, tmp_path, monkeypatch):
         results = train(cfg, work_dir=tmp_path)
     finally:
         registry._ALIASES["lib.models.SHAS"] = orig
-        backend_mod.set_backend("auto")  # train() forced xla for TP
 
     assert set(results) >= {"eval_f1", "eval_precision", "eval_recall"}
 
@@ -242,7 +237,6 @@ def test_multistep_per_bucket_grouping(corpus, tmp_path, monkeypatch, caplog):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
             f"+runtime.steps_per_call={K}",
         ])
@@ -296,7 +290,6 @@ def test_profile_steps_beyond_run_flushes_trace(corpus, tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
             "+runtime.steps_per_call=64",   # groups never fill -> tail drain
             "runtime.profile_steps=10000",  # beyond the run's total steps
@@ -319,13 +312,12 @@ def test_profile_steps_beyond_run_flushes_trace(corpus, tmp_path, monkeypatch):
 def test_train_loop_fsdp(corpus, tmp_path, monkeypatch):
     """runtime.mesh.fsdp=true: params + adam moments live sharded over
     'data' (ZeRO-3 via GSPMD, parallel/mesh._add_fsdp_axis); the loop
-    forces the xla kernel backend and trains + evaluates end-to-end."""
+    trains + evaluates end-to-end."""
     ws, talks_tsv, segments_tsv = corpus
     monkeypatch.chdir(tmp_path)
 
     import wav2vecsegmenter_tpu.parallel.mesh as mesh_mod
     from wav2vecsegmenter_tpu.config import registry
-    from wav2vecsegmenter_tpu.ops import backend as backend_mod
 
     import tests.helpers as helpers
 
@@ -350,7 +342,6 @@ def test_train_loop_fsdp(corpus, tmp_path, monkeypatch):
             f"data.train.segments_list={segments_tsv}",
             f"data.eval.talk_list={talks_tsv}",
             f"data.eval.segments_list={segments_tsv}",
-            "runtime.kernels=xla",
             "runtime.compute_dtype=float32",
             "runtime.mesh.data=8",
             "+runtime.mesh.fsdp=true",
@@ -360,6 +351,5 @@ def test_train_loop_fsdp(corpus, tmp_path, monkeypatch):
         results = train(cfg, work_dir=tmp_path)
     finally:
         registry._ALIASES["lib.models.SHAS"] = orig
-        backend_mod.set_backend("auto")  # train() forced xla for FSDP
 
     assert set(results) >= {"eval_f1", "eval_precision", "eval_recall"}

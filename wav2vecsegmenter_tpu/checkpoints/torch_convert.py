@@ -202,9 +202,20 @@ def convert_hf_for_ctc(sd: dict, cfg: Wav2Vec2Config,
     return out
 
 
-def load_torch_state_dict(path: str | Path) -> dict:
-    import torch
+def import_torch():
+    """torch, imported on first use: only the .pt converters need it."""
+    try:
+        import torch
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing PyTorch .pt checkpoints needs torch, which "
+            "is not installed; native checkpoint directories need no "
+            "torch") from e
+    return torch
 
+
+def load_torch_state_dict(path: str | Path) -> dict:
+    torch = import_torch()
     ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         return ckpt["state_dict"]

@@ -13,11 +13,11 @@ from pathlib import Path
 
 import numpy as np
 
+from .torch_convert import import_torch
+
 
 def _t(arr) -> "object":
-    import torch
-
-    return torch.from_numpy(np.asarray(arr).copy())
+    return import_torch().from_numpy(np.asarray(arr).copy())
 
 
 def _unstack(stacked: dict, i: int) -> dict:
@@ -93,8 +93,7 @@ def _export_wav2vec2(params: dict, cfg, prefix: str) -> dict:
 
 
 def _export_sfc(params: dict, prefix: str) -> dict:
-    import torch
-
+    torch = import_torch()
     sd: dict = {}
     if "layers" in params:
         n_layers = np.asarray(params["layers"]["ln1"]["scale"]).shape[0]
@@ -133,8 +132,8 @@ def export_torch_checkpoint(params: dict, model, path: str | Path) -> Path:
     """Write a reference-compatible .pt; layout follows
     ``model.save_full_state`` (full vs seg-only)."""
     import jax
-    import torch
 
+    torch = import_torch()
     # materialize the whole tree as host numpy ONCE: the per-leaf slicing
     # below (_unstack's x[i]) would otherwise dispatch hundreds of eager jax
     # ops — measured >10 min for 323.8M params on the 1-core bench host

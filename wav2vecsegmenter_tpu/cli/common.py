@@ -11,7 +11,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import yaml
 
@@ -27,7 +26,6 @@ from ..config import Config, instantiate, to_plain, to_yaml
 from ..data.datasets import FixedSegmentationDatasetNoTarget
 from ..data.loader import BatchIterator
 from ..infer.pipeline import WindowInference
-from ..ops.backend import set_backend
 
 logger = logging.getLogger("wav2vecsegmenter_tpu")
 
@@ -182,20 +180,14 @@ def init_logging(config: Config, logfile: str = "log") -> None:
 
 
 def apply_runtime(config: Config):
-    """Apply the TPU runtime block; returns the compute dtype."""
-    from ..core.runtime import maybe_init_distributed, setup_compilation_cache
+    """Apply the runtime block; returns the compute dtype."""
+    from ..core import platform
+    from ..core.runtime import maybe_init_distributed
 
     maybe_init_distributed()  # before the first backend query
-    setup_compilation_cache()
+    platform.setup_compilation_cache()
     rt = config.get("runtime") or {}
-    set_backend(rt.get("kernels", "auto"))
-    dtype_name = rt.get("compute_dtype", "bfloat16")
-    import jax
-
-    if jax.default_backend() != "tpu" and dtype_name == "bfloat16":
-        # parity on CPU: bf16 off-TPU is slow and imprecise
-        dtype_name = "float32"
-    return jnp.bfloat16 if dtype_name == "bfloat16" else jnp.float32
+    return platform.compute_dtype(rt.get("compute_dtype", "bfloat16"))
 
 
 def build_model(config: Config):
@@ -264,15 +256,12 @@ def segment_wavs(
     rounded up to a device multiple (loaders pad every batch to the static
     batch size, so sharding divisibility always holds)."""
     import jax
-    from tqdm import tqdm
 
     from ..parallel.mesh import pad_batch_to_devices, resolve_mesh
 
     rt = config.get("runtime") or {}
     mesh, n_data, n_model = resolve_mesh(rt.get("mesh"))
     n_devices = n_data  # windows shard over the data axis only
-    # Pallas kernels compose with the mesh via shard_map (ops/shmap.py);
-    # the engine scopes its own mesh context around every jit call
     batch_size = int(config.batch_size)
     if mesh is not None:
         padded = pad_batch_to_devices(batch_size, n_devices)
@@ -397,20 +386,18 @@ def segment_wavs(
     # talk lookahead: the next talks' decode + uploads + forwards are in
     # flight while talk N's probabilities stream back and its segmentation
     # algorithm runs on host — the device never idles between talks.
-    # Dispatch stays on the MAIN thread: a 1-worker dispatcher thread was
-    # built and A/B-measured (same process, alternating arms) — equal best
-    # wall, WORSE median (2.55/5.66 vs 2.53/3.62 s) on this 1-core host,
-    # where a third CPU-bound thread only adds GIL contention with the
-    # BatchIterator producer; revisit on a many-core TPU host.  Packed
+    # Dispatch stays on the MAIN thread: a 1-worker dispatcher thread lost
+    # on a 1-core host, where a third CPU-bound thread only adds GIL
+    # contention with the BatchIterator producer (ROADMAP S10).  Packed
     # sweeps need DEPTH 2: a talk's last batch only flushes once the NEXT
     # talk's windows top the buffer up, so with depth 1 every drain would
-    # block on a just-launched batch (measured 0.68x on a 16-talk sweep).
+    # block on a just-launched batch.
     from collections import deque
 
     lookahead = 2 if packer is not None else 1
     in_flight: deque = deque()
     try:
-        for wav_path in tqdm(wav_paths, desc="talks"):
+        for wav_path in wav_paths:
             in_flight.append(dispatch_one(wav_path))
             if len(in_flight) > lookahead:
                 drain_and_maybe_stop_profile(in_flight.popleft())

@@ -234,8 +234,8 @@ def _stream_concurrent(engine, config, tag, algo_conf, wav_paths,
 
     Up to ``n_concurrent`` wavs replay simultaneously; each tick feeds one
     chunk per active stream and all filled windows across streams run in
-    batched forwards (infer/online.MultiStreamSegmenter — the TPU-serving
-    configuration: batch-1 forwards leave the MXU mostly idle).  When a
+    batched forwards (infer/online.MultiStreamSegmenter — the serving
+    configuration: batch-1 forwards leave the device mostly idle).  When a
     stream's wav ends, the next wav is admitted in its place, so the pool
     stays full.  Commits are identical to the sequential path per stream
     (tested); returns {wav name: [Segment]}."""

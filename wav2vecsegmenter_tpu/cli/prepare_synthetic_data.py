@@ -41,10 +41,10 @@ def generate_segmentation_tree(args) -> None:
     import jax.numpy as jnp
 
     from ..checkpoints.io import load_model_checkpoint
-    from ..core.runtime import setup_compilation_cache
+    from ..core import platform
     from .common import build_model
 
-    setup_compilation_cache()
+    platform.setup_compilation_cache()
     save_dir = Path(args.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
 
@@ -53,9 +53,7 @@ def generate_segmentation_tree(args) -> None:
     ckpt = Path(args.outputs) / train_config["exp_name"] / "ckpts" / args.checkpoint
     params = load_model_checkpoint(model, ckpt)
 
-    import jax
-
-    compute_dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    compute_dtype = platform.compute_dtype()
     engine = WindowInference(model, params, loss_tag="bce",
                              compute_dtype=compute_dtype)
 

@@ -5,7 +5,7 @@ generators, vocabularies and losses straight from config
 (/root/reference/train.py:257-287, conf/task/shas.yaml:4).  This registry
 preserves that dependency-injection surface: reference target strings
 (``lib.models.SHAS``, ``torch.nn.BCEWithLogitsLoss``, ...) are remapped to
-this framework's TPU-native equivalents, and new-style
+this framework's JAX equivalents, and new-style
 ``wav2vecsegmenter_tpu.*`` targets resolve by import path.
 """
 

@@ -1,37 +1,8 @@
-"""Process-level JAX runtime setup: persistent compilation cache.
-
-The wav2vec2-large forward takes minutes to compile on TPU (remote-compile
-service); the persistent cache makes that a one-time cost per (shape, config)
-across processes.  Called by every CLI entry point, bench.py and
-__graft_entry__.
-"""
+"""Process-level JAX runtime setup: multi-host initialization."""
 
 from __future__ import annotations
 
 import os
-
-
-def setup_compilation_cache(cache_dir: str | None = None) -> None:
-    import jax
-
-    try:
-        if jax.default_backend() != "tpu":
-            # CPU AOT cache entries embed host machine features and can
-            # SIGILL when loaded on a different host — cache TPU only
-            return
-    except Exception:
-        return
-    cache_dir = cache_dir or os.environ.get(
-        "W2VSEG_JAX_CACHE",
-        os.path.expanduser("~/.cache/w2vseg_jax_cache"),
-    )
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # older jax without these flags
-        pass
 
 
 def maybe_init_distributed() -> bool:
@@ -47,8 +18,8 @@ def maybe_init_distributed() -> bool:
         W2VSEG_PROCESS_ID=i`` (works on CPU fleets too — how the
         multi-host tests run).
       * ``W2VSEG_DISTRIBUTED=auto`` -> ``jax.distributed.initialize()``
-        with no arguments: TPU pods self-discover coordinator/process
-        topology from the TPU environment.
+        with no arguments, for cluster managers JAX detects itself (SLURM,
+        Open MPI); nothing else tells JAX of a cluster.
       * neither -> single-host, no-op.
 
     After init, ``jax.devices()`` is the GLOBAL device list, so the mesh

@@ -60,7 +60,7 @@ def collate(
     With ``device_normalize`` the waveforms are left raw (float32 in [-1,1))
     and normalization moves into the jitted forward — halving host->device
     bytes when the engine uploads int16 and keeping the mean/std math on the
-    VPU (see infer/pipeline.py)."""
+    device (see infer/pipeline.py)."""
     n = len(examples)
     assert n <= batch_size
     audio = np.zeros((batch_size, audio_len),

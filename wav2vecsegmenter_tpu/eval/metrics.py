@@ -2,16 +2,37 @@
 
 Replicates reference lib/evaluate.py:130-214 — per talk, average probs over
 ``inference_times`` shifted window grids, threshold, accumulate preds/targets
-over all talks, then sklearn metrics rounded to 4 decimals.  ``eval_f1`` is
+over all talks, then binary metrics (sklearn semantics, in numpy) rounded
+to 4 decimals.  ``eval_f1`` is
 the best-checkpoint selection metric (reference conf/train.yaml:16-17).
 """
 
 from __future__ import annotations
 
 import numpy as np
-from sklearn.metrics import f1_score, precision_score, recall_score
 
 from ..infer.pipeline import WindowInference, collect_talk, dispatch_talk
+
+
+def binary_metrics(targets, preds) -> dict[str, float]:
+    """Accuracy (= sklearn's micro F1 for binary labels), binary F1,
+    precision and recall of bool arrays; a ratio whose denominator is zero
+    is 0.0, as sklearn's zero_division default reports it."""
+    t = np.asarray(targets, bool)
+    p = np.asarray(preds, bool)
+    tp = int(np.sum(t & p))
+    fp = int(np.sum(~t & p))
+    fn = int(np.sum(t & ~p))
+
+    def ratio(num, den):
+        return num / den if den else 0.0
+
+    return {
+        "accuracy": ratio(int(np.sum(t == p)), t.size),
+        "f1": ratio(2 * tp, 2 * tp + fp + fn),
+        "precision": ratio(tp, tp + fp),
+        "recall": ratio(tp, tp + fn),
+    }
 
 
 def evaluate(
@@ -27,8 +48,6 @@ def evaluate(
     talk_ids = dataloader_generator.get_talk_ids()
     inference_times = dataloader_generator.dataset.inference_times
 
-    from tqdm import tqdm
-
     def dispatch_one(talk_id):
         """Upload + launch all passes of one talk; duration_outframes is
         captured NOW (the generator mutates its dataset per talk)."""
@@ -41,7 +60,7 @@ def evaluate(
     # one-talk lookahead: talk N+1's windows upload + forward while talk
     # N's probabilities stream back (same pattern as cli/common.segment_wavs)
     handles = []
-    talk_iter = iter(tqdm(talk_ids, desc="eval talks"))
+    talk_iter = iter(talk_ids)
     nxt = next(talk_iter, None)
     if nxt is not None:
         handles.append(dispatch_one(nxt))
@@ -94,12 +113,10 @@ def evaluate(
     results_loss = (
         {"eval_loss": float(np.mean(all_losses))} if all_losses else {}
     )
+    m = binary_metrics(all_targets, all_preds)
     return {
         **results_loss,
-        "eval_accuracy": round(f1_score(all_targets, all_preds, average="micro"), 4),
-        "eval_f1": round(f1_score(all_targets, all_preds, average="binary"), 4),
-        "eval_precision": round(precision_score(all_targets, all_preds), 4),
-        "eval_recall": round(recall_score(all_targets, all_preds), 4),
+        **{f"eval_{k}": round(v, 4) for k, v in m.items()},
     }
 
 
@@ -107,16 +124,10 @@ def train_step_metrics(all_targets, all_preds, all_losses) -> dict:
     """Running train metrics printed every print_every_steps
     (reference train.py:508-527).  With no accumulated predictions (multi-
     host runs keep logits device-sharded and skip frame accumulation) the
-    frame metrics report nan rather than crashing sklearn."""
+    frame metrics report nan."""
     loss = float(np.mean(all_losses)) if all_losses else float("nan")
     if len(all_preds) == 0:
         nan = float("nan")
         return {"loss": loss, "accuracy": nan, "f1": nan,
                 "precision": nan, "recall": nan}
-    return {
-        "loss": loss,
-        "accuracy": f1_score(all_targets, all_preds, average="micro"),
-        "f1": f1_score(all_targets, all_preds, average="binary"),
-        "precision": precision_score(all_targets, all_preds, zero_division=0),
-        "recall": recall_score(all_targets, all_preds, zero_division=0),
-    }
+    return {"loss": loss, **binary_metrics(all_targets, all_preds)}

@@ -7,7 +7,7 @@ walk (lib/segment.py:525-592) is equally causal but only ships as a batch
 function.  This module makes both real: :class:`OnlineSegmenter` accepts
 16 kHz samples incrementally, runs the encoder on fixed-length windows as
 soon as they fill (ONE compiled shape, batch 1 — no retraces as audio
-arrives, TPU-friendly static shapes), and drives the same incremental
+arrives, static shapes), and drives the same incremental
 cores the offline entry points use
 (:class:`~..algorithms.strm.StreamingSTRM`,
 :class:`~..algorithms.pthr.StreamingPTHR` + ``StreamingMA``), so committed
@@ -90,8 +90,7 @@ class OnlineSegmenter:
         # <= segment_length to <= hop_secs + lookahead_secs; the algorithm
         # core's own bounded lookahead is unchanged.  Probabilities differ
         # from an offline run (different window grid + per-window
-        # normalization); the deviation is measured by
-        # scripts/measure_online_lag.py and recorded in PERF.md.
+        # normalization); that deviation is not measured yet.
         self.hop_inframes = None
         self.lookahead_out = 0
         if hop_secs is not None:
@@ -339,7 +338,7 @@ class OnlineSegmenter:
 class MultiStreamSegmenter:
     """Serve many concurrent audio streams through ONE batched encoder.
 
-    Batch-1 online forwards leave the MXU mostly idle; real deployments
+    Batch-1 online forwards leave the device mostly idle; real deployments
     serve many streams at once.  This multiplexer holds one
     :class:`OnlineSegmenter` state per stream and, on every
     :meth:`feed` call, runs all streams' newly filled windows through the

@@ -17,7 +17,7 @@ import math
 import jax
 import jax.numpy as jnp
 
-from ..ops.attention import attention
+from ..ops.attention import NEG_INF, attention, prefix_lengths
 from ..ops.layernorm import layer_norm
 from .sfc import _linear, _ln
 from .shas import _mask_like
@@ -33,32 +33,36 @@ _LAYER_DROPOUT = 0.1
 
 def _attn_block(p, x_q, x_kv, n_heads, key_mask=None, causal=False,
                 compute_dtype=jnp.float32):
+    """Multi-head attention in [B, T, N, D] layout.  ``key_mask`` [B, Tk]
+    is a prefix mask of valid keys (frame mask) or, with ``causal``, the
+    decoder's target padding mask."""
     b, tq, d = x_q.shape
     dh = d // n_heads
 
     def proj(pp, xx):
         return xx @ pp["w"].astype(compute_dtype) + pp["b"].astype(compute_dtype)
 
-    q = proj(p["q"], x_q).reshape(b, tq, n_heads, dh).transpose(0, 2, 1, 3)
-    k = proj(p["k"], x_kv).reshape(b, -1, n_heads, dh).transpose(0, 2, 1, 3)
-    v = proj(p["v"], x_kv).reshape(b, -1, n_heads, dh).transpose(0, 2, 1, 3)
+    q = proj(p["q"], x_q).reshape(b, tq, n_heads, dh)
+    k = proj(p["k"], x_kv).reshape(b, -1, n_heads, dh)
+    v = proj(p["v"], x_kv).reshape(b, -1, n_heads, dh)
     if causal:
-        # fused kernel handles key-padding only; causal decode uses XLA path.
-        # Scores + softmax in f32 regardless of compute dtype (same contract
-        # as ops/attention: bf16 exp/denominator accumulation is ~1% noisy)
-        scores = jnp.einsum("bhqd,bhkd->bhqk", q * dh ** -0.5, k,
+        # causal decoder self-attention keeps the explicit softmax: its
+        # target mask is not a prefix of valid keys per query.  Scores +
+        # softmax in f32 regardless of compute dtype (bf16 exp/denominator
+        # accumulation is ~1% noisy)
+        scores = jnp.einsum("bqnd,bknd->bnqk", q * dh ** -0.5, k,
                             preferred_element_type=jnp.float32)
         tk = scores.shape[-1]
         cmask = jnp.tril(jnp.ones((tq, tk), bool))
-        scores = jnp.where(cmask[None, None], scores, -1e30)
+        scores = jnp.where(cmask[None, None], scores, NEG_INF)
         if key_mask is not None:
-            scores = jnp.where(key_mask[:, None, None, :], scores, -1e30)
+            scores = jnp.where(key_mask[:, None, None, :], scores, NEG_INF)
         probs = jax.nn.softmax(scores, -1).astype(compute_dtype)
-        out = jnp.einsum("bhqk,bhkd->bhqd", probs, v)
+        out = jnp.einsum("bnqk,bknd->bqnd", probs, v)
     else:
-        out = attention(q, k, v, key_mask, scale=dh ** -0.5)
-    out = out.transpose(0, 2, 1, 3).reshape(b, tq, d)
-    return proj(p["o"], out)
+        kv_lengths = None if key_mask is None else prefix_lengths(key_mask)
+        out = attention(q, k, v, kv_lengths, scale=dh ** -0.5)
+    return proj(p["o"], out.reshape(b, tq, d))
 
 
 def _ffn_block(p, x, compute_dtype=jnp.float32, *, deterministic=True,

@@ -15,7 +15,7 @@ import math
 import jax
 import jax.numpy as jnp
 
-from ..ops.attention import attention_bthd
+from ..ops.attention import attention, prefix_lengths
 from ..ops.layernorm import layer_norm
 from .wav2vec2 import _dropout
 
@@ -90,6 +90,8 @@ def sfc_forward(
         h = _dropout(h, dropout, deterministic, sub)
 
     if "layers" in params:
+        kv_lengths = prefix_lengths(out_mask)
+
         def layer_body(carry, layer):
             hh, i = carry
             lrng = None if rng is None else jax.random.fold_in(rng, i)
@@ -107,8 +109,8 @@ def sfc_forward(
                 [layer["attn"][n]["b"] for n in ("q", "k", "v")]
             ).astype(compute_dtype)
             qkv = (hn @ wqkv + bqkv).reshape(b, t, 3, n_heads, dh)
-            a = attention_bthd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                               out_mask, scale=dh ** -0.5)
+            a = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                          kv_lengths, scale=dh ** -0.5)
             a = a.reshape(b, t, d_model)
             a = a @ layer["attn"]["o"]["w"].astype(compute_dtype) + \
                 layer["attn"]["o"]["b"].astype(compute_dtype)

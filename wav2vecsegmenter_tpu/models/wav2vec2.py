@@ -1,4 +1,4 @@
-"""wav2vec 2.0 encoder, TPU-native.
+"""wav2vec 2.0 encoder in JAX.
 
 Re-implements the architecture consumed by the reference through HF
 ``Wav2Vec2Model`` (reference lib/models.py:322-368): 7-layer strided 1D-conv
@@ -7,12 +7,13 @@ weight-normalized positional conv embedding, and a pre-LN ("stable layer
 norm") transformer stack truncated to ``keep_layers`` with the final encoder
 LayerNorm removed (lib/models.py:340-349) — the classifier re-normalizes.
 
-Design notes (TPU-first, not a port):
+Design notes:
   * params are plain pytrees; transformer layers are *stacked* along a
     leading axis and executed with ``lax.scan`` — one compiled layer body
-    regardless of depth, weights stream HBM->VMEM per layer;
-  * attention and LayerNorm dispatch to fused Pallas kernels on TPU
-    (ops/attention.py, ops/layernorm.py) with XLA fallbacks elsewhere;
+    regardless of depth;
+  * attention runs as cuDNN fused attention on the GPU and as the plain
+    einsum reference on the CPU (ops/attention.py); LayerNorm, GELU and the
+    FFN are plain XLA;
   * everything is static-shape: windows arrive padded to a fixed sample
     count, masking carries the true lengths (HF attention-mask semantics);
   * FFN adapters (reference lib/models.py:371-428) are represented uniformly
@@ -28,10 +29,7 @@ import math
 import jax
 import jax.numpy as jnp
 
-from ..ops.attention import attention_packed
-from ..ops.backend import get_backend
-from ..ops.convfuse import conv_bias_ln_gelu, convfuse_enabled
-from ..ops.ffn import ffn, ffnfuse_enabled
+from ..ops.attention import NEG_INF, attention, prefix_lengths
 from ..ops.layernorm import bias_layer_norm_gelu, layer_norm
 
 
@@ -51,7 +49,7 @@ class Wav2Vec2Config:
     num_conv_pos_embedding_groups: int = 16
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
-    # The fused attention kernel omits attention-prob dropout (PARITY.md);
+    # Fused attention omits attention-prob dropout (PARITY.md);
     # this flag enables it on an explicit-softmax XLA path, used to measure
     # the omission's effect on fine-tuning (scripts/measure_attn_dropout.py).
     apply_attention_prob_dropout: bool = False
@@ -296,13 +294,10 @@ def _dropout(x, rate, deterministic, rng):
 def _strided_conv1d_as_matmul(x: jax.Array, w: jax.Array, stride: int,
                               compute_dtype,
                               t_out_pad: int | None = None) -> jax.Array:
-    """VALID 1-D strided conv as stride-folding + MXU matmuls.
+    """VALID 1-D strided conv as stride-folding + matmuls.
 
-    XLA's TPU conv lowering is pathological for the wav2vec2 feature
-    extractor's very wide spatial extents (a [B, 320000, 1] conv takes
-    minutes to compile), and im2col via k strided slices is HBM-bound (the
-    whole activation is re-read k times through a strided gather; measured
-    5.8% MFU for the conv stack).  Instead, fold the stride into channels:
+    im2col via k strided slices re-reads the whole activation k times
+    through a strided gather.  Instead, fold the stride into channels:
     ``y[b, i, j*C+c] = x[b, i*s + j, c]`` is a free reshape, after which the
     conv is ``ceil(k/s)`` plain GEMMs over stride-1 time-shifted views of
     ``y`` — no patch materialization, K-dims of s*C (1024 for the 512-ch
@@ -310,13 +305,9 @@ def _strided_conv1d_as_matmul(x: jax.Array, w: jax.Array, stride: int,
     (exact).  x [B, T, C], w [k, C, O] -> [B, T', O], T' = (T - k)//s + 1.
 
     ``t_out_pad`` (>= the real T') computes that many output rows instead,
-    reading zero-padded input for the extras: with T' a multiple of 8 the
-    [B,T',C] <-> [B*T',C] flattens around the GEMMs become free bitcasts
-    instead of physical retiling copies (TPU (8,128) tiling pads each
-    example's row block to 8 sublanes when T' is odd).  Measured bit-exact
-    on TPU for the real rows and 69.9 -> 44.1 ms/batch for the conv stack
-    (scripts/bench_conv_cf.py; the channels-first rewrite measured there
-    lost — see PERF.md).  The caller slices the garbage tail off.
+    reading zero-padded input for the extras; the real rows are unchanged
+    and the caller slices the garbage tail off.  Whether this stride-folded
+    form beats cuDNN's native conv on the GPU is open (ROADMAP S8).
     """
     b, t, c = x.shape
     k, _, o = w.shape
@@ -336,12 +327,10 @@ def _strided_conv1d_as_matmul(x: jax.Array, w: jax.Array, stride: int,
     w = w.astype(compute_dtype)
 
     if stride * c <= 64:
-        # tiny-channel fast path (the raw-audio layer: s*c == 5): each
-        # accumulated tap GEMM costs a full 128-deep MXU pass over the
-        # [B*T', O] output regardless of its tiny K, so n_taps passes double
-        # the MXU time, and the concat that merges them into ONE GEMM of
-        # K = n_taps*s*c is only a [B, T', n_taps*s*c] materialization —
-        # ~20 MB here, noise next to the 1 GB output
+        # tiny-channel path (the raw-audio layer: s*c == 5): n_taps GEMMs
+        # of tiny K would each re-read and re-write the [B*T', O] output;
+        # the concat that merges them into ONE GEMM of K = n_taps*s*c is
+        # only a [B, T', n_taps*s*c] materialization, small next to it
         z = jnp.concatenate(
             [jax.lax.slice_in_dim(y, p, p + t_out, 1, axis=1)
              for p in range(n_taps)], axis=-1)
@@ -354,7 +343,7 @@ def _strided_conv1d_as_matmul(x: jax.Array, w: jax.Array, stride: int,
         )
         return out.astype(compute_dtype)
 
-    # wide-channel path: K = s*C per tap is already MXU-deep (1024 for the
+    # wide-channel path: K = s*C per tap is already deep (1024 for the
     # 512-ch layers) and a concat would materialize a doubled activation
     # (GBs); accumulate n_taps GEMMs over shifted views instead.
     # tap p covers original kernel positions j' in [p*s, p*s + s) (zero rows
@@ -374,35 +363,6 @@ def _strided_conv1d_as_matmul(x: jax.Array, w: jax.Array, stride: int,
     return acc.astype(compute_dtype)
 
 
-def _fold_for_taps(x: jax.Array, k: int, s: int, t_out: int,
-                   compute_dtype) -> jax.Array:
-    """Stride-fold [B, T, C] -> [B, n_taps + t_out - 1, s*C] (see
-    _strided_conv1d_as_matmul for the fold contract)."""
-    b, t, c = x.shape
-    n_taps = -(-k // s)
-    t_need = (n_taps + t_out - 1) * s
-    if t_need > t:
-        x = jnp.pad(x, ((0, 0), (0, t_need - t), (0, 0)))
-    elif t_need < t:
-        x = x[:, :t_need]
-    return x.reshape(b, n_taps + t_out - 1, s * c).astype(compute_dtype)
-
-
-def _tap_weights(w: jax.Array, s: int) -> jax.Array:
-    """[k, C, O] conv weight -> per-tap folded GEMM weights
-    [n_taps, s*C, O], zero rows where the kernel ends mid-stride."""
-    k, c, o = w.shape
-    n_taps = -(-k // s)
-    taps = []
-    for p in range(n_taps):
-        j_hi = min(s, k - p * s)
-        wt = w[p * s: p * s + j_hi].reshape(j_hi * c, o)
-        if j_hi < s:
-            wt = jnp.pad(wt, ((0, (s - j_hi) * c), (0, 0)))
-        taps.append(wt)
-    return jnp.stack(taps)
-
-
 def feature_extractor(params: dict, audio: jax.Array,
                       cfg: Wav2Vec2Config,
                       compute_dtype=jnp.float32) -> jax.Array:
@@ -415,10 +375,11 @@ def feature_extractor(params: dict, audio: jax.Array,
     GroupNorm normalizes over TIME, so group mode runs unpadded.
 
     The pads are chained BACKWARD: each layer's t_out_pad is raised (in
-    8-steps) until the next layer's stride-fold view fits inside it, so the
-    inter-layer ``jnp.pad`` copies over GB-scale activations (~5 ms/batch
-    in the trace) become slices of already-computed garbage rows; the only
-    remaining pad lands on the [B, L, 1] raw audio (KBs).
+    8-steps) until the next layer's stride-fold view fits inside it, so no
+    ``jnp.pad`` copy runs between layers over GB-scale activations; the
+    only pad lands on the [B, L, 1] raw audio (KBs).  The 8-row alignment
+    came from a tiled-memory layout; whether it pays on the GPU is open
+    (ROADMAP D4).
     """
     align = 8 if cfg.feat_extract_norm == "layer" else 1
     t_real = audio.shape[1]
@@ -444,51 +405,10 @@ def feature_extractor(params: dict, audio: jax.Array,
         k, s = cfg.conv_kernel[i], cfg.conv_stride[i]
         t_real = (t_real - k) // s + 1
         ln_mode = "ln" in layer and "b" in layer
-        n_taps = -(-k // s)
-        if (ln_mode and (s * x.shape[-1]) % 128 == 0 and n_taps <= 2
-                and convfuse_enabled()):
-            # s*C divisible by 128: the folded depth fills whole Mosaic
-            # lanes (ops/convfuse.py contract — a non-multiple block would
-            # pass interpret-mode tests but mislower on real TPU; the
-            # production 512-ch layers give s*C=1024)
-            # whole layer (tap GEMMs + bias + LN + GELU) in ONE kernel
-            # pass: one read of the folded input (tap 1 via an in-kernel
-            # halo) and one write of the activated output, vs ~3 reads +
-            # 2 writes as separate XLA ops over GB-scale activations
-            t_out = t_pads[i] if t_pads[i] is not None else t_real
-            y = _fold_for_taps(x, k, s, t_out, compute_dtype)
-            x = conv_bias_ln_gelu(
-                y, _tap_weights(w, s), layer["b"],
-                layer["ln"]["scale"], layer["ln"]["bias"], t_out,
-                cfg.layer_norm_eps)
-            continue
-        if ln_mode and s * x.shape[-1] <= 64 and convfuse_enabled():
-            # raw-audio layer, fused whole-layer: its tap-concat GEMM has a
-            # tiny K (k*c = 10), so the layer is HBM-bound — the separate
-            # GEMM-output write plus the epilogue's read of the ~1 GB
-            # activation are pure bandwidth.  The already-concatenated
-            # [B, T', k*c] operand is single-tap (no halo); ck = k*c equals
-            # the array dim, the other legal Mosaic block shape
-            # (ops/convfuse._kernel_1tap).
-            t_out = t_pads[i] if t_pads[i] is not None else t_real
-            c_in = x.shape[-1]
-            y = _fold_for_taps(x, k, s, t_out, compute_dtype)
-            z = jnp.concatenate(
-                [jax.lax.slice_in_dim(y, p, p + t_out, 1, axis=1)
-                 for p in range(n_taps)], axis=-1)
-            w_full = w.astype(compute_dtype).reshape(k * c_in, -1)
-            if n_taps * s > k:
-                w_full = jnp.pad(
-                    w_full, ((0, (n_taps * s - k) * c_in), (0, 0)))
-            x = conv_bias_ln_gelu(
-                z, w_full[None], layer["b"], layer["ln"]["scale"],
-                layer["ln"]["bias"], t_out, cfg.layer_norm_eps)
-            continue
         x = _strided_conv1d_as_matmul(x, w, s, compute_dtype,
                                       t_out_pad=t_pads[i])
         if ln_mode:
-            # one fused HBM pass for the conv epilogue (tiny-channel
-            # layers whose conv runs as the tap-concat single GEMM)
+            # bias + LN + GELU: one XLA fusion over the GEMM output
             x = bias_layer_norm_gelu(
                 x, layer["b"], layer["ln"]["scale"], layer["ln"]["bias"],
                 cfg.layer_norm_eps)
@@ -528,7 +448,7 @@ def positional_conv(params: dict, x: jax.Array, cfg: Wav2Vec2Config,
     w = jnp.transpose(w, (2, 1, 0)).astype(compute_dtype)  # [k, in/groups, out]
     pad = cfg.num_conv_pos_embeddings // 2
     # no preferred_element_type: its VJP produces an f32 cotangent against
-    # bf16 operands and conv_general_dilated rejects the mix; the MXU still
+    # bf16 operands and conv_general_dilated rejects the mix; the device still
     # accumulates in f32 internally for bf16 inputs
     y = jax.lax.conv_general_dilated(
         x.astype(compute_dtype), w,
@@ -544,7 +464,7 @@ def positional_conv(params: dict, x: jax.Array, cfg: Wav2Vec2Config,
 
 
 def _lin(lin: dict, x: jax.Array, compute_dtype) -> jax.Array:
-    """x @ W + b, routed through the int8 MXU path when ``lin`` holds
+    """x @ W + b, routed through the int8 GEMM path when ``lin`` holds
     quantized weights (ops/quant.quantize_params)."""
     if "qw" in lin:
         from ..ops.quant import int8_matmul
@@ -559,64 +479,46 @@ def _ffn_block(ffn_params: dict, x: jax.Array, deterministic: bool,
                rng_act, rng_hid, cfg: Wav2Vec2Config,
                compute_dtype) -> jax.Array:
     """FFN sub-block: w1 -> GELU -> (activation dropout) -> w2 -> (hidden
-    dropout).  On TPU the whole chain runs as ONE Pallas kernel (ops/ffn.py)
-    whenever the between-GEMM activation dropout is a no-op (inference, or
-    activation_dropout == 0 — true for xls-r, the production checkpoint);
-    otherwise (CPU parity paths, int8 weights, active activation-dropout)
-    the separate-GEMM composition with the materialized-GELU barrier."""
-    # the fused kernel serves the INFERENCE forward only: inside the train
-    # step's jvp the same pallas_call tips the scoped-VMEM stack over the
-    # 16 MB limit at batch 14 (measured Mosaic compile failure, 2026-08-20
-    # — the two VMEM-resident weight mats are 16 MB by themselves and the
-    # grad program's operand fusions cost the remaining margin), and the
-    # backward recomputes through the XLA chain anyway
+    dropout), as plain GEMMs left to XLA (cuBLAS on the GPU)."""
     act_noop = (deterministic or cfg.activation_dropout == 0.0
                 or rng_act is None)
-    if (deterministic and "qw" not in ffn_params["w1"]
-            and get_backend() == "pallas" and ffnfuse_enabled()):
-        f = ffn(x, ffn_params["w1"]["w"], ffn_params["w1"]["b"],
-                ffn_params["w2"]["w"], ffn_params["w2"]["b"])
-    else:
-        def chain(xx):
-            f = _lin(ffn_params["w1"], xx, compute_dtype)
-            f = _gelu(f)
-            # materialize the GELU output: as a w2-GEMM operand fusion it
-            # drags that GEMM from ~190 to ~81 TF/s on v5e (profiled)
-            f = jax.lax.optimization_barrier(f)
-            f = _dropout(f, cfg.activation_dropout, deterministic, rng_act)
-            return _lin(ffn_params["w2"], f, compute_dtype)
 
-        if not deterministic and act_noop:
-            # training: rematerialize the chain in the backward instead of
-            # stashing the [B, T, 4F] GELU buffers per scan layer — at the
-            # reference's batch_size=14 recipe those stashes alone are
-            # 2 x 2.56 GB and blow the v5e's 16 GB HBM (measured compile
-            # OOM, 2026-08-20); recomputing two GEMMs in the backward
-            # costs ~the same time as reloading their stash bytes.  Same
-            # residual contract as the fused kernel's custom_vjp.
-            f = jax.checkpoint(chain)(x)
-        else:
-            f = chain(x)
+    def chain(xx):
+        f = _lin(ffn_params["w1"], xx, compute_dtype)
+        f = _gelu(f)
+        # materialize the GELU output instead of letting XLA fuse it into
+        # the w2 GEMM's operand (whether that pays on the GPU: ROADMAP S9)
+        f = jax.lax.optimization_barrier(f)
+        f = _dropout(f, cfg.activation_dropout, deterministic, rng_act)
+        return _lin(ffn_params["w2"], f, compute_dtype)
+
+    if not deterministic and act_noop:
+        # training: rematerialize the chain in the backward instead of
+        # stashing the [B, T, 4F] GELU buffers of every scan layer (at the
+        # reference's batch_size=14 recipe, 2 x 2.56 GB); recomputing two
+        # GEMMs in the backward costs about what reloading the stash would
+        f = jax.checkpoint(chain)(x)
+    else:
+        f = chain(x)
     return _dropout(f, cfg.hidden_dropout, deterministic, rng_hid)
 
 
-def _mha(layer_attn: dict, x: jax.Array, key_mask: jax.Array | None,
+def _mha(layer_attn: dict, x: jax.Array, kv_lengths: jax.Array | None,
          num_heads: int, deterministic: bool, rng, attn_dropout: float,
          compute_dtype, apply_prob_dropout: bool = False) -> jax.Array:
     b, t, h = x.shape
     d = h // num_heads
     xc = x.astype(compute_dtype)
 
-    # single fused QKV GEMM: one [h, 3h] matmul runs ~2x faster than three
-    # [h, h] matmuls on v5e (wider N amortizes the MXU pipeline; measured
-    # 39 vs 65+ TF/s), and the runtime concat of the per-head weights is a
-    # 6 MB copy — noise next to the 33 GFLOP GEMM
+    # single fused QKV GEMM: one [h, 3h] matmul instead of three [h, h]
+    # (wider N, one launch); the runtime concat of the per-head weights is
+    # a 6 MB copy, small next to the GEMM
     bqkv = jnp.concatenate(
         [layer_attn[n]["b"] for n in ("q", "k", "v")]
     ).astype(compute_dtype)
     if "qw" in layer_attn["q"]:
-        # int8 serving path: the fused [h, 3h] GEMM runs int8 on the MXU;
-        # per-column scales concatenate alongside the weights
+        # int8 serving path: the fused [h, 3h] GEMM runs int8 x int8 ->
+        # int32; per-column scales concatenate alongside the weights
         from ..ops.quant import int8_matmul
 
         wqkv_q = jnp.concatenate(
@@ -629,31 +531,28 @@ def _mha(layer_attn: dict, x: jax.Array, key_mask: jax.Array | None,
             [layer_attn[n]["w"] for n in ("q", "k", "v")], axis=1
         ).astype(compute_dtype)
         proj = xc @ wqkv + bqkv
+    # [B, T, 3, N, D]: q/k/v slice out in the [B, T, N, D] layout the
+    # attention takes, with no head transpose
+    qkv = proj.reshape(b, t, 3, num_heads, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if (apply_prob_dropout and not deterministic and attn_dropout > 0.0
             and rng is not None):
         # explicit-softmax path with attention-prob dropout (HF semantics);
-        # measurement-only — the fused kernel omits prob dropout, and
+        # measurement-only — fused attention omits prob dropout, and
         # scripts/measure_attn_dropout.py quantifies the difference
-        from ..ops.attention import NEG_INF
-
-        qkv = proj.reshape(b, t, 3, num_heads, d).transpose(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        scores = jnp.einsum("bhqd,bhkd->bhqk", q.astype(jnp.float32) * d**-0.5,
+        scores = jnp.einsum("bqnd,bknd->bnqk", q.astype(jnp.float32) * d**-0.5,
                             k.astype(jnp.float32))
-        if key_mask is not None:
-            scores += jnp.where(key_mask[:, None, None, :], 0.0, NEG_INF)
+        if kv_lengths is not None:
+            valid = jnp.arange(t)[None, :] < kv_lengths[:, None]
+            scores += jnp.where(valid[:, None, None, :], 0.0, NEG_INF)
         probs = jax.nn.softmax(scores, axis=-1)
         keep = jax.random.bernoulli(rng, 1.0 - attn_dropout, probs.shape)
         probs = jnp.where(keep, probs / (1.0 - attn_dropout), 0.0)
-        out = jnp.einsum("bhqk,bhkd->bhqd", probs.astype(v.dtype), v)
-        out = out.transpose(0, 2, 1, 3).reshape(b, t, h)
+        out = jnp.einsum("bnqk,bknd->bqnd", probs.astype(v.dtype), v)
     else:
-        # packed-layout attention straight off the QKV GEMM output — on TPU
-        # this skips the [B,T,3,H,D]->[B,H,T,D] head relayout entirely
-        # (0.79-0.93 ms/layer of pure HBM copies at production geometry);
-        # (attention-prob dropout omitted under the fused kernel — PARITY.md)
-        out = attention_packed(proj, key_mask, num_heads, d ** -0.5)
-    return _lin(layer_attn["o"], out, compute_dtype)
+        # (attention-prob dropout omitted under fused attention — PARITY.md)
+        out = attention(q, k, v, kv_lengths, d ** -0.5)
+    return _lin(layer_attn["o"], out.reshape(b, t, h), compute_dtype)
 
 
 def encoder(params: dict, x: jax.Array, frame_mask: jax.Array,
@@ -679,6 +578,7 @@ def encoder(params: dict, x: jax.Array, frame_mask: jax.Array,
     """
     eps = cfg.layer_norm_eps
     x = jnp.where(frame_mask[:, :, None], x, 0)
+    kv_lengths = prefix_lengths(frame_mask)
     x = x + positional_conv(params, x, cfg, compute_dtype)
     # Truncation contract (reference lib/models.py:340-349): encoder.layer_norm
     # is replaced by Identity for EVERY variant.  For the stable-LN models
@@ -709,7 +609,7 @@ def encoder(params: dict, x: jax.Array, frame_mask: jax.Array,
                 # pre-LN: h += attn(LN1(h)); h += ffn(LN2(h))
                 hn = layer_norm(h, layer["ln1"]["scale"],
                                 layer["ln1"]["bias"], eps).astype(dt)
-                a = _mha(layer["attn"], hn, frame_mask, cfg.num_heads,
+                a = _mha(layer["attn"], hn, kv_lengths, cfg.num_heads,
                          deterministic, rngs[0], cfg.attention_dropout,
                          dt, cfg.apply_attention_prob_dropout)
                 a = _dropout(a, cfg.hidden_dropout, deterministic, rngs[1])
@@ -731,7 +631,7 @@ def encoder(params: dict, x: jax.Array, frame_mask: jax.Array,
                 h = h + f.astype(res_dt)
             else:
                 # post-LN: h = LN1(h + attn(h)); h = LN2(h + ffn(h))
-                a = _mha(layer["attn"], h.astype(dt), frame_mask,
+                a = _mha(layer["attn"], h.astype(dt), kv_lengths,
                          cfg.num_heads, deterministic, rngs[0],
                          cfg.attention_dropout, dt,
                          cfg.apply_attention_prob_dropout)
@@ -747,9 +647,8 @@ def encoder(params: dict, x: jax.Array, frame_mask: jax.Array,
         return layer_body
 
     # cast the stacked layer params ONCE, outside the scan: otherwise XLA
-    # emits per-layer f32->bf16 converts as operand fusions on the GEMMs
-    # (measured: the dynamic-slice+convert prologue cut the FFN w2 GEMM from
-    # ~190 to ~81 TF/s on v5e); a single hoisted convert is one clean pass.
+    # emits per-layer f32->bf16 converts as operand fusions on the GEMMs;
+    # a single hoisted convert is one clean pass.
     # int8 weights (non-floating) and their per-channel scales ("qs") are
     # exempt — scales must stay f32 (a bf16 scale adds ~0.2% per-channel
     # gain error on top of the int8 grid).

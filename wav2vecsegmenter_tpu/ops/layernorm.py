@@ -1,28 +1,23 @@
-"""LayerNorm: Pallas fused kernel (TPU) with an XLA fallback.
+"""LayerNorm and the conv layers' bias -> LayerNorm -> GELU epilogue.
 
-LayerNorm is memory-bound; the fused kernel reads each row of activations
-from HBM once, computes mean/var on the VPU, and writes the normalized row —
-no intermediate HBM round-trips.  Matches torch.nn.LayerNorm semantics
+Plain XLA: on the GPU each becomes one fusion (a row reduction plus its
+elementwise tail: one read and one write of the activations), which is all
+a hand-written kernel could do.  Matches torch.nn.LayerNorm semantics
 (biased variance, eps inside the sqrt), which both the wav2vec2 encoder and
 the SFC head rely on (reference lib/models.py:303, HF modeling_wav2vec2).
+Statistics are taken in float32 whatever the activation dtype.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .backend import get_backend
 
 _EPS = 1e-5
 
 
-def layer_norm_xla(x: jax.Array, scale: jax.Array, bias: jax.Array,
-                   eps: float = _EPS) -> jax.Array:
+def layer_norm(x: jax.Array, scale: jax.Array, bias: jax.Array,
+               eps: float = _EPS) -> jax.Array:
     orig_dtype = x.dtype
     x32 = x.astype(jnp.float32)
     mean = jnp.mean(x32, axis=-1, keepdims=True)
@@ -31,242 +26,9 @@ def layer_norm_xla(x: jax.Array, scale: jax.Array, bias: jax.Array,
     return (y * scale + bias).astype(orig_dtype)
 
 
-def _ln_kernel(x_ref, scale_ref, bias_ref, o_ref, *, eps: float):
-    x = x_ref[:].astype(jnp.float32)
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mean), axis=-1, keepdims=True)
-    y = (x - mean) * jax.lax.rsqrt(var + eps)
-    o_ref[:] = (y * scale_ref[:] + bias_ref[:]).astype(o_ref.dtype)
-
-
-def _ln_bwd_kernel(x_ref, scale_ref, g_ref, dx_ref, dscale_ref, dbias_ref,
-                   *, eps: float):
-    """Fused LN backward per row block; dscale/dbias accumulate across the
-    grid (revisited output blocks, constant index map)."""
-    i = pl.program_id(0)
-    x = x_ref[:].astype(jnp.float32)
-    g = g_ref[:].astype(jnp.float32)
-    h = x.shape[-1]
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mean), axis=-1, keepdims=True)
-    rstd = jax.lax.rsqrt(var + eps)
-    xhat = (x - mean) * rstd
-
-    gs = g * scale_ref[:][None, :]
-    m1 = jnp.mean(gs, axis=-1, keepdims=True)
-    m2 = jnp.mean(gs * xhat, axis=-1, keepdims=True)
-    dx = (gs - m1 - xhat * m2) * rstd
-    dx_ref[:] = dx.astype(dx_ref.dtype)
-
-    @pl.when(i == 0)
-    def _():
-        dscale_ref[:] = jnp.zeros_like(dscale_ref[:])
-        dbias_ref[:] = jnp.zeros_like(dbias_ref[:])
-
-    dscale_ref[:] += jnp.sum(g * xhat, axis=0).astype(dscale_ref.dtype)
-    dbias_ref[:] += jnp.sum(g, axis=0).astype(dbias_ref.dtype)
-
-
-def _ln_fwd_call(x2, scale, bias, eps, block_rows):
-    padded_rows, h = x2.shape
-    return pl.pallas_call(
-        functools.partial(_ln_kernel, eps=eps),
-        out_shape=jax.ShapeDtypeStruct((padded_rows, h), x2.dtype),
-        grid=(padded_rows // block_rows,),
-        in_specs=[
-            pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-    )(x2, scale, bias)
-
-
-def _ln_bwd_call(x2, scale, g2, eps, block_rows):
-    padded_rows, h = x2.shape
-    dx, dscale, dbias = pl.pallas_call(
-        functools.partial(_ln_bwd_kernel, eps=eps),
-        out_shape=(
-            jax.ShapeDtypeStruct((padded_rows, h), jnp.float32),
-            jax.ShapeDtypeStruct((h,), jnp.float32),
-            jax.ShapeDtypeStruct((h,), jnp.float32),
-        ),
-        grid=(padded_rows // block_rows,),
-        in_specs=[
-            pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-        ),
-    )(x2, scale, g2)
-    return dx, dscale, dbias
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _ln_2d(x2, scale, bias, eps, block_rows):
-    return _ln_fwd_call(x2, scale, bias, eps, block_rows)
-
-
-def _ln_2d_fwd(x2, scale, bias, eps, block_rows):
-    return _ln_fwd_call(x2, scale, bias, eps, block_rows), (x2, scale)
-
-
-def _ln_2d_bwd(eps, block_rows, res, g):
-    x2, scale = res
-    dx, dscale, dbias = _ln_bwd_call(x2, scale, g, eps, block_rows)
-    return (dx.astype(x2.dtype), dscale.astype(scale.dtype),
-            dbias.astype(scale.dtype))
-
-
-_ln_2d.defvjp(_ln_2d_fwd, _ln_2d_bwd)
-
-
-@functools.partial(jax.jit, static_argnames=("eps", "block_rows"))
-def layer_norm_pallas(x: jax.Array, scale: jax.Array, bias: jax.Array,
-                      eps: float = _EPS, block_rows: int = 256) -> jax.Array:
-    """Fused LN over the last dim; leading dims flattened into rows."""
-    orig_shape = x.shape
-    h = orig_shape[-1]
-    rows = 1
-    for d in orig_shape[:-1]:
-        rows *= d
-    x2 = x.reshape(rows, h)
-
-    # pad rows to a block multiple
-    padded_rows = ((rows + block_rows - 1) // block_rows) * block_rows
-    if padded_rows != rows:
-        x2 = jnp.pad(x2, ((0, padded_rows - rows), (0, 0)))
-
-    out = _ln_2d(x2, scale, bias, eps, block_rows)
-    return out[:rows].reshape(orig_shape)
-
-
-def layer_norm(x: jax.Array, scale: jax.Array, bias: jax.Array,
-               eps: float = _EPS) -> jax.Array:
-    if get_backend() == "pallas":
-        from .shmap import shard_rows
-
-        # rows are independent: under an active mesh the kernel runs
-        # shard_map'd over the leading (batch) dim (ops/shmap.py)
-        return shard_rows(
-            lambda a, s, b: layer_norm_pallas(a, s, b, eps=eps),
-            x, scale, bias)
-    return layer_norm_xla(x, scale, bias, eps)
-
-
-# ---------------------------------------------------------------------------
-# fused conv epilogue: (+ channel bias) -> LayerNorm -> GELU in one pass
-#
-# The wav2vec2 feature extractor applies bias + LN + GELU after each conv
-# GEMM over activations as large as [B, 64000, 512]; as separate XLA ops
-# that's 3 extra HBM round-trips per layer.  This kernel does all three in
-# a single read/write.  Backward recomputes through the XLA composition
-# (the feature extractor is frozen under LNA fine-tuning, so the backward
-# is off the hot path).
-# ---------------------------------------------------------------------------
-
-def _bln_gelu_xla(x, conv_bias, scale, bias, eps):
-    y = layer_norm_xla(x + conv_bias.astype(x.dtype), scale, bias, eps)
-    return jax.nn.gelu(y, approximate=False)
-
-
-def _erf_approx(x):
-    """Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7 — far below the bf16
-    output resolution); Mosaic has no erf/erfc lowering."""
-    a1, a2, a3, a4, a5 = (0.254829592, -0.284496736, 1.421413741,
-                          -1.453152027, 1.061405429)
-    p = 0.3275911
-    ax = jnp.abs(x)
-    t = 1.0 / (1.0 + p * ax)
-    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
-    y = 1.0 - poly * jnp.exp(-ax * ax)
-    return jnp.sign(x) * y
-
-
-def _bln_gelu_kernel(x_ref, cb_ref, scale_ref, bias_ref, o_ref, *, eps):
-    x = x_ref[:].astype(jnp.float32) + cb_ref[:].astype(jnp.float32)
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mean), axis=-1, keepdims=True)
-    y = (x - mean) * jax.lax.rsqrt(var + eps)
-    y = y * scale_ref[:] + bias_ref[:]
-    # exact GELU via the erf approximation
-    g = 0.5 * y * (1.0 + _erf_approx(y * (2.0 ** -0.5)))
-    o_ref[:] = g.astype(o_ref.dtype)
-
-
-def _bln_gelu_call(x2, cbias, scale, bias, eps, block_rows):
-    """Rows need NOT be a block_rows multiple: Mosaic masks the ragged
-    final block (out-of-bounds reads yield junk rows whose LN/GELU is
-    computed and then dropped on the out-of-bounds write — safe because
-    the kernel has no cross-row accumulation).  Verified correct on real
-    TPU by scripts/probe_uneven_small.py; this keeps the backward pad
-    chain in feature_extractor (arbitrary B*t_pad row counts) from
-    triggering a GB-scale jnp.pad here."""
-    rows, h = x2.shape
-    return pl.pallas_call(
-        functools.partial(_bln_gelu_kernel, eps=eps),
-        out_shape=jax.ShapeDtypeStruct((rows, h), x2.dtype),
-        grid=(-(-rows // block_rows),),
-        in_specs=[
-            pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((h,), lambda i: (0,), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block_rows, h), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-    )(x2, cbias, scale, bias)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
-def _bln_gelu_2d(x2, cbias, scale, bias, eps, block_rows):
-    return _bln_gelu_call(x2, cbias, scale, bias, eps, block_rows)
-
-
-def _bln_gelu_2d_fwd(x2, cbias, scale, bias, eps, block_rows):
-    out = _bln_gelu_call(x2, cbias, scale, bias, eps, block_rows)
-    return out, (x2, cbias, scale, bias)
-
-
-def _bln_gelu_2d_bwd(eps, block_rows, res, g):
-    x2, cbias, scale, bias = res
-    _, vjp = jax.vjp(
-        lambda a, cb, s, bi: _bln_gelu_xla(a, cb, s, bi, eps),
-        x2, cbias, scale, bias)
-    return vjp(g.astype(x2.dtype))
-
-
-_bln_gelu_2d.defvjp(_bln_gelu_2d_fwd, _bln_gelu_2d_bwd)
-
-
 def bias_layer_norm_gelu(x: jax.Array, conv_bias: jax.Array,
                          scale: jax.Array, bias: jax.Array,
-                         eps: float = _EPS, block_rows: int = 256) -> jax.Array:
-    """(x + conv_bias) -> LayerNorm(scale, bias) -> exact GELU, fused."""
-    if get_backend() != "pallas":
-        return _bln_gelu_xla(x, conv_bias, scale, bias, eps)
-    from .shmap import shard_rows
-
-    def fused(x, conv_bias, scale, bias):
-        orig_shape = x.shape
-        h = orig_shape[-1]
-        rows = 1
-        for d in orig_shape[:-1]:
-            rows *= d
-        x2 = x.reshape(rows, h)
-        out = _bln_gelu_2d(x2, conv_bias, scale, bias, eps, block_rows)
-        return out.reshape(orig_shape)
-
-    # rows are independent: the reshape/pad happens per-shard inside the
-    # shard_map so sharded leading dims never retile
-    return shard_rows(fused, x, conv_bias, scale, bias)
+                         eps: float = _EPS) -> jax.Array:
+    """(x + conv_bias) -> LayerNorm(scale, bias) -> exact GELU."""
+    y = layer_norm(x + conv_bias.astype(x.dtype), scale, bias, eps)
+    return jax.nn.gelu(y, approximate=False)

@@ -1,24 +1,23 @@
 """Int8 (w8a8) quantized inference for the encoder GEMMs — opt-in.
 
-TPU v5e runs int8 matmuls through the MXU at twice the bf16 rate
-(~394 TOPS vs ~197 TFLOPS peak), and the in-encoder GEMMs already run at
-~96% of the bf16 ceiling on this model (PERF.md: VMEM-resident operands,
-~190 TF/s measured) — bf16 leaves them nothing, so the remaining lever is
-the narrower MXU datatype.  This module implements the standard
+Int8 x int8 -> int32 products run on the H100's tensor cores at twice the
+bf16 rate (NVIDIA's data sheet: 1,979 dense TOP/s against 989 TFLOP/s);
+whether that rate shows end to end on this model is not measured yet
+(ROADMAP, deferred items).  This module implements the standard
 weight-per-output-channel / activation-per-row dynamic symmetric scheme:
 
 * weights: quantized ONCE at engine build (``quantize_params``) to int8
   with one float32 scale per output channel (max-abs over the input dim);
 * activations: quantized inside the jitted forward per row (max-abs over
-  the hidden dim — a VPU reduction that fuses with the surrounding
+  the hidden dim — a reduction that fuses with the surrounding
   elementwise work), so no calibration data is needed;
-* the GEMM runs int8 x int8 -> int32 on the MXU
+* the GEMM runs int8 x int8 -> int32
   (``lax.dot_general(..., preferred_element_type=int32)``), then the two
   scales multiply back in float32.
 
 Quantized are the transformer-layer GEMMs of the wav2vec backbone (fused
 QKV, attention output, FFN w1/w2) — 24h^2 of the model's ~24h^2+alpha
-per-frame FLOPs.  LayerNorms, the attention core (Pallas, bf16), the conv
+per-frame FLOPs.  LayerNorms, the attention core (bf16), the conv
 feature extractor, the positional conv, adapters, and the SFC head stay in
 ``compute_dtype``: they are a small fraction of the time and the cheapest
 places to keep full precision.
@@ -67,7 +66,7 @@ def int8_matmul(x: jax.Array, qw: jax.Array, qs: jax.Array) -> jax.Array:
     """x [..., d_in] (any float dtype) @ int8 weights -> float32 [..., d_out].
 
     Activations quantize dynamically per row (max-abs over d_in) in f32,
-    the contraction runs int8 x int8 -> int32 on the MXU, and the row and
+    the contraction runs int8 x int8 -> int32, and the row and
     column scales multiply back in f32.  Rows that are entirely zero
     (padded windows) stay exactly zero.
     """

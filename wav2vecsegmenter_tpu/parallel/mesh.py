@@ -1,8 +1,8 @@
 """Device mesh and sharding helpers.
 
 The reference scales with single-host ``nn.DataParallel``
-(train.py:312-315); the TPU-native equivalent is a ``jax.sharding.Mesh``
-over chips with XLA-inserted collectives riding ICI:
+(train.py:312-315); the JAX equivalent is a ``jax.sharding.Mesh`` over
+devices with XLA-inserted collectives (NCCL on the GPU):
 
 * **data axis** — batches sharded, gradients all-reduced (psum) inside the
   jitted train step.  This is the production configuration for the 300 M
@@ -13,12 +13,9 @@ over chips with XLA-inserted collectives riding ICI:
   so each device computes a head/FFN slice and XLA inserts one
   reduce-scatter/all-reduce per block boundary.  Optimizer moments inherit
   the param shardings (see ``state_shardings``), cutting per-device
-  optimizer memory by the model-axis size.  The fused Pallas kernels stay
-  active under the mesh: GSPMD cannot auto-partition a Mosaic custom call,
-  so the ops wrap their kernels in ``jax.shard_map`` (heads over 'model',
-  batch rows over 'data' — ops/shmap.py); the step factories and
-  WindowInference scope the mesh context around their own jit calls
-  (``ops.backend.ops_mesh`` / ``mesh_scoped``).
+  optimizer memory by the model-axis size.  Every op on the path is plain
+  XLA or cuDNN fused attention, which GSPMD partitions like any other op:
+  no op needs a mesh context of its own.
 
 The helpers here also back the multi-chip dry-run path
 (__graft_entry__.dryrun_multichip) and CPU tests with
@@ -49,8 +46,7 @@ def resolve_mesh(mesh_conf, devices=None):
     Returns ``(mesh_or_None, n_data, n_model)``.  A requested axis that
     cannot be satisfied by the available devices is an error, never a
     silent fallback to replicated execution: a model that only fits
-    sharded would otherwise OOM with no hint why (and ``set_backend('xla')``
-    for tensor parallelism would silently not happen)."""
+    sharded would otherwise OOM with no hint why."""
     if devices is None:
         devices = jax.devices()
     conf = mesh_conf or {}

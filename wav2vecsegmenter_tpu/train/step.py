@@ -7,7 +7,7 @@ Replaces the reference's eager loop body (train.py:381-480):
     ``model.trainable_mask`` — the functional replacement for
     requires_grad=False (reference lib/models.py:335-365);
   * data parallelism: params replicated, batch sharded over the 'data' mesh
-    axis; XLA inserts the psum gradient all-reduce over ICI.
+    axis; XLA inserts the gradient all-reduce (NCCL on the GPU).
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from ..ops.backend import mesh_scoped
 from ..parallel.mesh import batch_sharding, replicated
 from .loss import moving_average_jax
 
@@ -110,10 +109,9 @@ def make_accum_flush(optimizer, mesh=None, state_shardings=None):
         rep = replicated(mesh)
         state_sh = (TrainState(rep, rep, rep) if state_shardings is None
                     else state_shardings)
-        return mesh_scoped(
-            jax.jit(flush, in_shardings=(state_sh,),
-                    out_shardings=state_sh, donate_argnums=(0,)), mesh)
-    return mesh_scoped(jax.jit(flush, donate_argnums=(0,)), mesh)
+        return jax.jit(flush, in_shardings=(state_sh,),
+                       out_shardings=state_sh, donate_argnums=(0,))
+    return jax.jit(flush, donate_argnums=(0,))
 
 
 def _mask_updates(mask_tree):
@@ -291,14 +289,14 @@ def make_train_step(model, loss_fn, loss_tag: str, ma_window_steps: int,
         # bce-tag loss still gets pos_weight injected by the train loop
         if dynamic_pos_weight:
             batch_shardings["pos_weight"] = rep
-        return mesh_scoped(jax.jit(
+        return jax.jit(
             step_fn,
             in_shardings=(state_sh, batch_shardings, rep),
             out_shardings=(state_sh, {"loss": rep, "logits": data_sh,
                                       "grad_norm": rep}),
             donate_argnums=(0,),
-        ), mesh)
-    return mesh_scoped(jax.jit(step_fn, donate_argnums=(0,)), mesh)
+        )
+    return jax.jit(step_fn, donate_argnums=(0,))
 
 
 def make_train_multistep(model, loss_fn, loss_tag: str, ma_window_steps: int,
@@ -309,9 +307,7 @@ def make_train_multistep(model, loss_fn, loss_tag: str, ma_window_steps: int,
                          state_shardings=None):
     """K train steps inside one jit via lax.scan.
 
-    Amortizes per-call overhead (dispatch, and on remote-execution runtimes
-    the round trip of the param-sized train state) across ``n_steps``
-    micro-steps: the call takes stacked batches (leading [K] axis) and
+    Amortizes per-call dispatch overhead across ``n_steps`` micro-steps: the call takes stacked batches (leading [K] axis) and
     returns the state once.  Losses and last-step logits come back for the
     training metrics."""
     single = make_train_step(
@@ -353,14 +349,14 @@ def make_train_multistep(model, loss_fn, loss_tag: str, ma_window_steps: int,
         # metrics: losses are [K] (replicated); logits stack to [K, B, ...]
         # with the batch on axis 1 — shard that axis like the inputs
         logits_sh = NamedSharding(mesh, P(None, "data"))
-        return mesh_scoped(jax.jit(
+        return jax.jit(
             multi_fn,
             in_shardings=(state_sh, None, rep),
             out_shardings=(state_sh, {"loss": rep, "logits": logits_sh,
                                       "grad_norm": rep}),
             donate_argnums=(0,),
-        ), mesh)
-    return mesh_scoped(jax.jit(multi_fn, donate_argnums=(0,)), mesh)
+        )
+    return jax.jit(multi_fn, donate_argnums=(0,))
 
 
 def init_train_state(model, optimizer, rng, params=None) -> TrainState:
